@@ -1,6 +1,8 @@
 #!/bin/sh
-# Build the native golden scanner shared library.
+# Build the native golden scanner shared library for this machine.
+# Usage: build.sh [OUTPUT]   (default: libgolden_scan.so beside this script)
 set -e
 cd "$(dirname "$0")"
-g++ -O3 -march=native -shared -fPIC -o libgolden_scan.so golden_scan.cpp
-echo "built $(pwd)/libgolden_scan.so"
+out="${1:-libgolden_scan.so}"
+g++ -O3 -march=native -shared -fPIC -o "$out" golden_scan.cpp
+echo "built $out"

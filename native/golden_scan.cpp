@@ -1,7 +1,7 @@
 // Fast CPU golden scanners for conformance diffing.
 //
 // The Python oracle (regex_fpga_tpu/models/oracle.py) is the semantic root
-// but runs at ~100 KB/s — far too slow to diff a TPU engine against
+// but runs at ~100 KB/s — far too slow to diff a device engine against
 // multi-GB corpora.  This native scanner implements the same match
 // semantics (reference Design/FPGA.v: accept = out-degree 0, counted one
 // char late, per-state counters; SURVEY.md SS3.3) at ~10^8 bytes/s:

@@ -1,11 +1,11 @@
-"""regex_fpga_tpu — a TPU-native regex stream-matching framework.
+"""regex_fpga_tpu — a JAX regex stream-matching framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the FPGA
+A from-scratch JAX/XLA re-design of the capabilities of the FPGA
 reference design ``linfenghuaster/Regex-FPGA`` (see SURVEY.md): CSR-encoded
 automata loaded from the reference ``.coe`` memory images, a bit-exact NFA
 bitset engine for the shipped intrusion-detection rulesets, and a
 block-parallel speculative DFA scan engine (associative transition-function
-composition) for high-throughput scanning, sharded over TPU meshes.
+composition) for high-throughput scanning, sharded over device meshes.
 """
 
 __version__ = "0.1.0"

@@ -461,6 +461,9 @@ def main(argv=None) -> int:
     s.set_defaults(fn=cmd_conformance)
 
     args = p.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,7 +1,7 @@
 """Capture-group extraction: a tagged Pike VM over device-found spans.
 
 The reference design reports only accept-state indices (`Design/FPGA.v:210-226`
-— there is no notion of sub-spans in the RTL), and the TPU scan engines are
+— there is no notion of sub-spans in the RTL), and the device scan engines are
 (subset-)DFAs, which cannot track capture groups.  This module supplies the
 two-stage design used by production DFA engines (RE2, Hyperscan): the device
 engines find match SPANS at full throughput; group sub-spans are then

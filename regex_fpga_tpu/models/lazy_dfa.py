@@ -210,7 +210,7 @@ class LazyDfa:
         byte); walking ``chunks`` independent cursors round-robin overlaps
         their cache misses, and ``threads`` ctypes calls run concurrently
         (the GIL is released during the native call).  Exactness follows
-        the same induction as the TPU engines (ops/dfa_fast.py): cursor c
+        the same induction as the device engines (ops/dfa_fast.py): cursor c
         first replays the ``overlap`` bytes before its chunk from the hub
         start state (speculation); after the main walk, ``finals[c] ==
         entries[c+1]`` for all seams proves every cursor walked from its

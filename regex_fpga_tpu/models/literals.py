@@ -1,5 +1,5 @@
 """Aho–Corasick multi-literal compiler: a set of literal byte strings →
-one dense DFA, scanned by the fast MXU engine with per-pattern attribution.
+one dense DFA, scanned by the fast device engine with per-pattern attribution.
 
 IDS rulesets (the reference's domain — its two ``.coe`` images derive from
 Snort and l7-filter rules, SURVEY.md §2.1 #13-14) are dominated by literal

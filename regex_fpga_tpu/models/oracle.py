@@ -15,7 +15,7 @@ derived from ``Design/FPGA.v:210-226`` accept detection and the
    active exactly one character.
 
 These oracles are deliberately simple Python/NumPy; the C++ fast oracle in
-``native/`` and every TPU engine are validated against them.
+``native/`` and every device engine are validated against them.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference ships only *compiled* automata (the `.coe` images; no compiler
 exists anywhere in `linfenghuaster/Regex-FPGA` — SURVEY.md SS0), so this
-stage is new surface area the TPU framework must provide to be usable as a
+stage is new surface area the framework must provide to be usable as a
 regex engine: users compile patterns, the reference's users load `.coe`.
 
 Supported syntax (byte-oriented):

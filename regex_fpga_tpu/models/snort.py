@@ -9,7 +9,7 @@ the same two-stage architecture Snort itself uses —
 
   1. **multi-pattern prefilter** (device): every rule's ``content``
      literals go into one Aho–Corasick automaton (``models/literals.py``)
-     scanned by the fast MXU engines; a rule is a candidate only if ALL its
+     scanned by the fast device engines; a rule is a candidate only if ALL its
      non-negated contents occur in the stream.  Case-insensitive
      (``nocase``) contents are handled by a second automaton over the
      case-folded stream.

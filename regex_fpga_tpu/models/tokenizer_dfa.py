@@ -2,7 +2,7 @@
 
 Exposes the DFA engine as a regex pre-split stage for tokenization pipelines
 (the framework-level capability called for in BASELINE.json config 4; the
-reference has no software layer at all, so this is new TPU-native surface).
+reference has no software layer at all, so this is new surface).
 
 Construction: take the anchored token-pattern DFA and close it over restarts:
 
@@ -12,7 +12,7 @@ Construction: take the anchored token-pattern DFA and close it over restarts:
 
 The boundary flag rides along as a doubled state space (2S states), so the
 result is an ordinary dense DFA consumable by every engine in ``ops``
-(including the fast MXU path) with ``accept`` = "a token started when this
+(including the fast GEMM path) with ``accept`` = "a token started when this
 state was entered".
 
 Semantics note: this is maximal-munch WITHOUT backtracking to the last

@@ -2,7 +2,7 @@
 
 The reference's per-character state chain is strictly serial
 (``current <= next`` once per char, ``Design/FPGA.v:733-737``) — the central
-limitation the TPU build removes (SURVEY.md SS5.7).  The parallelization is
+limitation the device build removes (SURVEY.md SS5.7).  The parallelization is
 the classic associative-function-composition scheme:
 
   pass 1 (parallel over blocks): each block of B bytes computes its composed
@@ -16,9 +16,9 @@ the classic associative-function-composition scheme:
      accept dropped — SURVEY.md SS3.3).
 
 Total work = L*(S+1) gathers for full per-position output, or pass 1 only
-(L*S) when just the composed function / final state is needed.  The Pallas
-kernel in ``pallas_dfa.py`` implements the same contract; this module is the
-jnp-level reference implementation and the correctness oracle for it.
+(L*S) when just the composed function / final state is needed.  This module
+is the jnp-level reference implementation and the exact fallback of the fast
+engines.
 """
 
 from __future__ import annotations

@@ -44,28 +44,24 @@ __all__ = [
     "KGRAM_MAX_STATES",
 ]
 
-#: Measured k-gram vs k=1 engine crossover.  r3 (BENCH_r03): k-gram won
-#: 1.1-2.6x up to S~107 and lost above — gate was 128.  r4 RE-MEASURED
-#: after the state-contracted k=1 orientation (``dfa_fast.transposed_step``)
-#: sped k=1 up across the board: the r4 bench sweep shows k=1 WINNING at
-#: S=67 (0.610 vs 0.577) and S=107 (0.582 vs 0.544), and a same-process
-#: tokenizer A/B measured k=1 1.184 vs k-gram 1.141 GB/s even at S=23 —
-#: parity within noise.  The gate drops to the packed-single-select
-#: boundary (S <= 32, where the k-gram historical win was largest and the
-#: cost of being wrong is measured <= 4%); above it the k=1 engine is the
-#: measured winner at every size.  Shared by ``api.DfaMatcher._kgram``
-#: and ``choose_scan_level`` so the model and the gate cannot disagree
-#: (r3 verdict weak #6).
+#: k-gram vs k=1 engine gate: the k-gram counting engine is used only up
+#: to this many states (the packed single-select boundary); above it the
+#: k=1 counts engine runs.  The value comes from the design's first target
+#: and has not been re-measured on the GPU (ROADMAP S1/S5;
+#: ``chip_smoke.py`` prints both engines' rates).  Shared by
+#: ``api.DfaMatcher._kgram`` and ``choose_scan_level`` so the model and
+#: the gate cannot disagree.
 KGRAM_MAX_STATES = 32
 
 
 
 def kgram_step_cost(s: int, c_l: int, lv: int) -> float:
-    """Padded-MXU-tile cost per BYTE of one engine step at level ``lv``.
+    """Padded-tile cost per BYTE of one engine step at level ``lv``.
 
-    Models what ``make_kgram_step`` actually emits: every MXU op pads to
-    128x128 tiles, so cost/step = ceil(C_l/128) * ceil(W/128) + selects,
-    where the table width W and select count depend on the route —
+    Models what ``make_kgram_step`` actually emits, with every GEMM padded
+    to 128x128 tiles (a heuristic kept from the design's first target):
+    cost/step = ceil(C_l/128) * ceil(W/128) + selects, where the table
+    width W and select count depend on the route —
     byte-split (S > 256) rides a 3S-wide GEMM, the packed single-select
     route (``(S-1)*mult + k <= 256``) an S-wide one, and the unpacked
     route a 2S-wide GEMM with two selects.  Level 0 is the k=1 counts
@@ -75,11 +71,13 @@ def kgram_step_cost(s: int, c_l: int, lv: int) -> float:
     The model picks the right LEVEL within the k-gram engine; the
     engine-vs-engine choice (k-gram vs k=1) additionally shifts with
     unmodeled per-step costs (int16 class-stream gathers, prescan), so
-    ``api.DfaMatcher._kgram`` uses the MEASURED crossover constant
+    ``api.DfaMatcher._kgram`` uses the crossover constant
     ``KGRAM_MAX_STATES`` rather than comparing cost(0) to cost(best).
     """
+    from .dfa_fast import split_states
+
     k = 1 << lv
-    split = 256 < s <= (1 << 16)
+    split = split_states(s)
     if lv == 0:
         width, selects = (2 * s if split else s), 1
     elif split:
@@ -100,7 +98,7 @@ def choose_kgram_level(s: int, level_classes: list[int]) -> int:
     """Cheapest level >= 1 under ``kgram_step_cost`` — ONLY for callers
     that already committed to the k-gram engine (e.g. the bench sweep
     measuring the k-gram curve for the record).  For the real engine
-    choice use ``choose_scan_level``, which includes the measured k=1
+    choice use ``choose_scan_level``, which includes the k=1
     crossover gate."""
     costs = [kgram_step_cost(s, c_l, lv)
              for lv, c_l in enumerate(level_classes)]
@@ -111,14 +109,12 @@ def choose_scan_level(s: int, level_classes: list[int] | None = None) -> int:
     """Engine choice for a COUNTING scan: 0 = the k=1 counts engine,
     ``lv >= 1`` = the k-gram engine at that level.
 
-    Folds the MEASURED gate on top of the padded-tile model: above
-    ``KGRAM_MAX_STATES`` the k-gram engine loses at every benched size
-    even where raw tile arithmetic narrowly favors it (the model's
-    admitted blind spots — int16 class-stream gather, host prescan — all
-    scale against k-gram), so the answer is 0 regardless of
-    ``level_classes``.  At or below the gate the cheapest level under
-    ``kgram_step_cost`` wins, INCLUDING level 0 when the model says the
-    k=1 engine is already cheapest (degenerate class structures)."""
+    Folds the gate on top of the padded-tile model: above
+    ``KGRAM_MAX_STATES`` the answer is 0 regardless of ``level_classes``
+    (the model's blind spots — int16 class-stream gather, host prescan —
+    all scale against k-gram).  At or below the gate the cheapest level
+    under ``kgram_step_cost`` wins, INCLUDING level 0 when the model says
+    the k=1 engine is already cheapest (degenerate class structures)."""
     if s > KGRAM_MAX_STATES or not level_classes:
         return 0
     costs = [kgram_step_cost(s, c_l, lv)
@@ -142,9 +138,9 @@ class KgramTables:
 def _intern_rows(both: np.ndarray, max_classes: int):
     """Dedupe rows of a 2-D int32 array by first-occurrence interning.
     Returns (uniq_rows, remap) or None when distinct rows exceed
-    ``max_classes``.  np.unique(axis=0) lex-sorts the full rows and
-    measured 13.9 s at 30k rows x 1.7k cols — the dict is ~50x faster and
-    first-occurrence order keeps class ids stable."""
+    ``max_classes``.  np.unique(axis=0) would lex-sort the full rows; the
+    dict avoids that sort and first-occurrence order keeps class ids
+    stable."""
     both = np.ascontiguousarray(both, dtype=np.int32)
     seen: dict[bytes, int] = {}
     remap = np.empty(both.shape[0], dtype=np.int32)
@@ -207,8 +203,7 @@ def map_kgram_classes(kg: KgramTables, data: np.ndarray) -> np.ndarray:
     """Map raw bytes to k-gram class ids (length L / k; L % k == 0).
 
     Uses the native streaming passes when available (numpy fancy indexing
-    measured ~83 MB/s for this; the C passes run at memory speed, so the
-    host ingest keeps up with the ~6 GB/s device engine)."""
+    is far slower; the C passes run at memory speed)."""
     data = np.ascontiguousarray(np.asarray(data, dtype=np.uint8))
     assert len(data) % kg.k == 0
     lib = None
@@ -290,32 +285,30 @@ def make_kgram_step(
 
     When the caller promises acc values <= acc_bound (k, known statically),
     transition and accept pack into ONE value T*mult + A — one select
-    instead of two (measured ~5% faster).  Exactness: packed values must
-    stay bf16-exact (<= 256).  Packing into "f32" is NOT safe on TPU —
-    the default matmul precision truncates f32 operands to one bf16 MXU
-    pass, corrupting the low bit of values above 256 (measured 5% count
-    loss at levels=3; dfa_fast.mm_dtype docstring).  Above 256 the split
-    tables are used instead: their entries (state ids and per-step accept
-    counts) stay individually small, or ride f32 with HIGHEST precision.
+    instead of two.  Packing follows the same exactness rule as every
+    table (``dfa_fast.table_encoding``): packed values must stay
+    bf16-exact (<= 256).  Above that the unpacked tables are used, whose
+    entries (state ids and per-step accept counts) stay individually
+    small: bf16, byte-split bf16, or f32 with HIGHEST precision.
     """
-    from .dfa_fast import mm_dtype, mm_precision, split_states
+    from .dfa_fast import BF16_EXACT_MAX, mm_dtype, one_hot_dot, split_states
 
     c, s = table.shape
     iota_c = jax.lax.broadcasted_iota(jnp.int32, (1, c), 1)
     iota_s = jax.lax.broadcasted_iota(jnp.int32, (1, s), 1)
 
     if split_states(s):
-        # byte-split bf16 (dfa_fast.mm_dtype docstring): [Tl | Th | A]
-        # columns in ONE 3S-wide GEMM instead of the 6-pass f32 HIGHEST
-        # route.  Per-step accept counts are <= k <= 256 (build_kgram
-        # levels stay tiny), so A is bf16-exact unsplit.
+        # byte-split bf16 (dfa_fast.table_encoding): [Tl | Th | A]
+        # columns in ONE 3S-wide GEMM instead of the multi-pass f32
+        # HIGHEST route.  Per-step accept counts are <= k <= 256
+        # (build_kgram levels stay tiny), so A is bf16-exact unsplit.
         ta3 = jnp.concatenate(
             [table % 256, table // 256, acc_table], axis=1
         ).astype(jnp.bfloat16)
 
         def step(state, cls_t):
             oh_c = (cls_t[:, None] == iota_c).astype(jnp.bfloat16)
-            rows = jnp.dot(oh_c, ta3, preferred_element_type=jnp.float32)
+            rows = one_hot_dot(oh_c, ta3)
             oh_x = (state[:, None] == iota_s).astype(jnp.float32)
             lo = jnp.sum(rows[:, :s] * oh_x, axis=-1)
             hi = jnp.sum(rows[:, s:2 * s] * oh_x, axis=-1)
@@ -329,10 +322,8 @@ def make_kgram_step(
         mult = 1
         while mult <= acc_bound:
             mult *= 2
-        # TPU: bf16-exact only; CPU/GPU f32 dots are true f32 (exact < 2^24)
-        limit = 256 if jax.default_backend() == "tpu" else (1 << 24) - 1
-        if (s - 1) * mult + acc_bound > limit:
-            mult = 0  # beyond the exact range: use the split tables
+        if (s - 1) * mult + acc_bound > BF16_EXACT_MAX:
+            mult = 0  # beyond bf16's exact range: use the unpacked tables
     if mult:
         packed_max = (s - 1) * mult + acc_bound
         pk_i = table * mult + acc_table  # (C, S)
@@ -341,8 +332,7 @@ def make_kgram_step(
 
         def step(state, cls_t):
             oh_c = (cls_t[:, None] == iota_c).astype(mmdt)
-            rows = jnp.dot(oh_c, pk, preferred_element_type=jnp.float32,
-                           precision=mm_precision(mmdt))
+            rows = one_hot_dot(oh_c, pk)
             oh_x = (state[:, None] == iota_s).astype(jnp.float32)
             v = jnp.sum(rows * oh_x, axis=-1).astype(jnp.int32)
             return v // mult, v % mult
@@ -355,8 +345,7 @@ def make_kgram_step(
 
         def step(state, cls_t):
             oh_c = (cls_t[:, None] == iota_c).astype(mmdt)
-            rows = jnp.dot(oh_c, ta, preferred_element_type=jnp.float32,
-                           precision=mm_precision(mmdt))
+            rows = one_hot_dot(oh_c, ta)
             oh_x = (state[:, None] == iota_s).astype(jnp.float32)
             nxt = jnp.sum(rows[:, :s] * oh_x, axis=-1).astype(jnp.int32)
             acc = jnp.sum(rows[:, s:] * oh_x, axis=-1).astype(jnp.int32)
@@ -373,9 +362,8 @@ def kgram_pass_full(
     acc_bound: int | None = None,
 ):
     """One full chain pass over NB lanes: final states + per-lane accept
-    totals, both (NB,).  Cost equals a finals-only pass: the accept row
-    rides the same (NB, C) @ (C, 2S) GEMM (2S <= 128 pads to the same MXU
-    tile as S alone)."""
+    totals, both (NB,).  The accept row rides the same (NB, C) @ (C, 2S)
+    GEMM as the transitions."""
     step = make_kgram_step(table, acc_table, acc_bound)
 
     def body(carry, cl):
@@ -412,7 +400,7 @@ def _speculative_entries(blocks: jnp.ndarray, step, start, overlap: int):
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "num_blocks", "max_iters", "overlap", "use_pallas", "acc_bound"
+        "num_blocks", "max_iters", "overlap", "acc_bound"
     ),
 )
 def dfa_scan_kgram(
@@ -423,16 +411,14 @@ def dfa_scan_kgram(
     start: int = 0,
     max_iters: int = 16,
     overlap: int = 16,
-    use_pallas: bool = False,
     acc_bound: int | None = None,
 ) -> KgramScanResult:
     """Speculative chain scan over k-gram steps; returns final state + exact
     total match count.
 
-    Inner loop (measured ~89% of the bf16 MXU roofline for this shape): ONE
-    fused (NB, C)@(C, 2S) one-hot GEMM per step yields both the transition
-    row and the accept-count row (2S <= 128 pads to the same MXU tile as S
-    alone, so accept accumulation is free), followed by a VPU select-reduce.
+    Inner loop: ONE fused (NB, C)@(C, 2S) one-hot GEMM per step yields both
+    the transition row and the accept-count row, followed by a
+    select-reduce.
 
     Block seams — overlap speculation, exact by verification: each lane
     first scans the last ``overlap`` steps of the PREVIOUS block from the
@@ -450,7 +436,6 @@ def dfa_scan_kgram(
     l = classes_k.shape[0]
     assert l % num_blocks == 0
     b = l // num_blocks
-    c, s = table.shape
     blocks = classes_k.astype(jnp.int32).reshape(num_blocks, b)
     cls_seq = blocks.T  # (B, NB) scan columns
     start = jnp.asarray(start, jnp.int32)
@@ -467,27 +452,11 @@ def dfa_scan_kgram(
         nxt, acc = step(st, cl)
         return (nxt, tot + acc), None
 
-    if use_pallas:
-        from .pallas_kgram import (
-            KGRAM_LANE_TILE,
-            kgram_chain_pallas,
-            pack_ta128,
+    def pass_full(entries):
+        (finals, totals), _ = jax.lax.scan(
+            full_body, (entries, jnp.zeros_like(entries)), cls_seq
         )
-
-        assert s <= 64 and num_blocks % KGRAM_LANE_TILE == 0 and b % 128 == 0, (
-            "pallas k-gram path needs S <= 64, num_blocks % "
-            f"{KGRAM_LANE_TILE} == 0 and steps/block % 128 == 0"
-        )
-        ta128 = pack_ta128(table, acc_table)
-
-        def pass_full(entries):
-            return kgram_chain_pallas(ta128, blocks, entries)
-    else:
-        def pass_full(entries):
-            (finals, totals), _ = jax.lax.scan(
-                full_body, (entries, jnp.zeros_like(entries)), cls_seq
-            )
-            return finals, totals
+        return finals, totals
 
     def cond(carry):
         return jnp.logical_and(~carry[3], carry[4] < max_iters)

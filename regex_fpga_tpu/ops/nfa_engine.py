@@ -1,4 +1,4 @@
-"""TPU NFA bitset engine — the bit-exact conformance path.
+"""Device NFA active-set engine — the bit-exact conformance path.
 
 The reference engine scans every state index serially per character
 (1 cycle per inactive state, ``Design/FPGA.v:744-765``), so its cost is

@@ -1,7 +1,7 @@
-"""Device table layouts — CSR automata converted to TPU-friendly dense arrays.
+"""Device table layouts — CSR automata converted to dense device arrays.
 
 The reference engine walks CSR transition lists word-by-word out of BRAM
-(``Design/FPGA.v:227-406``).  The TPU-native layout instead precomputes dense
+(``Design/FPGA.v:227-406``).  The device layout instead precomputes dense
 per-byte-class tables at load time so the inner loop is pure vectorized
 gather — no irregular CSR walk on device (SURVEY.md SS7.1 item 3).
 

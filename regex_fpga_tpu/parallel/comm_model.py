@@ -1,14 +1,11 @@
 """Exact collective-traffic accounting for the distributed scan engines.
 
-The virtual-CPU-mesh scaling rows (``bench_scaling.py``) measure 2-core
-host contention, not ICI (honestly disclaimed since r2) — so the ≥85%
-scaling-efficiency target (SURVEY.md §5.8 / BASELINE config 5) is instead
+The ≥85% scaling-efficiency target (SURVEY.md §5.8 / BASELINE config 5) is
 grounded ANALYTICALLY here: every byte the distributed scans move per
 collective is exact from shapes (the shard_map bodies in
 ``parallel/dist_scan.py`` contain NO other communication — module header
-there), and projecting ICI time against measured compute rates yields a
-defensible "≥85% at N chips for shards ≥ X bytes" statement with the
-arithmetic recorded in ``SCALING_rNN.json``'s ``comm_model`` section.
+there), and projecting link time against a per-device compute rate yields
+a "≥85% at N devices for shards ≥ X bytes" statement.
 
 Collective inventory of ``dfa_scan_fast_dist`` (``dist_scan.py:125-179``),
 per DEVICE per scan, with ``b_loc = batch / n_data`` streams per data
@@ -27,16 +24,17 @@ finals all_gather (1x)       ring ``(n-1) * b_loc * 4`` received
 ``dfa_scan_kgram_dist`` is identical in structure with k-gram STEPS as
 the unit (overlap counts steps; each step covers k bytes).
 
-ICI constants are the public v5e figures (scaling-book values); compute
-rates are this repo's measured per-chip numbers.  Latency per collective
-phase dominates at these payloads (hundreds of bytes), which is exactly
-why the seam design scales: traffic per scanned byte is ``O(1/l_shard)``.
+The link constant is the H100's NVLink figure from NVIDIA's data sheet;
+the compute rate is the caller's (``comm_model_report`` takes it as an
+argument — no device rate is built in).  Latency per collective phase
+dominates at these payloads (hundreds of bytes), which is exactly why the
+seam design scales: traffic per scanned byte is ``O(1/l_shard)``.
 """
 
 from __future__ import annotations
 
 __all__ = [
-    "V5E_ICI_LINK_BPS",
+    "NVLINK_BPS",
     "COLLECTIVE_LATENCY_S",
     "fast_dist_comm_bytes",
     "project_efficiency",
@@ -44,12 +42,12 @@ __all__ = [
     "comm_model_report",
 ]
 
-#: v5e ICI: ~45 GB/s per link per direction (public scaling-book figure
-#: for the v5e 2D torus; a 1-hop ppermute rides one link)
-V5E_ICI_LINK_BPS = 45e9
-#: per-collective-phase launch+hop latency budget.  Public figures put a
-#: single ICI hop at ~1 us; 5 us per phase is a conservative envelope
-#: covering XLA launch overhead and multi-hop rings at small n.
+#: H100 SXM NVLink: 900 GB/s per card to its peers, 450 GB/s each way
+#: (NVIDIA H100 data sheet); the cards of one host are joined all to all
+NVLINK_BPS = 450e9
+#: per-collective-phase launch+hop latency budget.  5 us per phase is a
+#: conservative envelope covering XLA/NCCL launch overhead and ring hops
+#: at small n; not measured on the GPU yet (ROADMAP S8).
 COLLECTIVE_LATENCY_S = 5e-6
 
 
@@ -93,7 +91,7 @@ def fast_dist_comm_bytes(
 def project_efficiency(
     comm: dict,
     compute_bps: float,
-    link_bps: float = V5E_ICI_LINK_BPS,
+    link_bps: float = NVLINK_BPS,
     latency_s: float = COLLECTIVE_LATENCY_S,
 ) -> dict:
     """Scaling efficiency = T_compute / (T_compute + T_comm) with
@@ -121,7 +119,7 @@ def min_shard_bytes_for_efficiency(
     compute_bps: float,
     overlap: int = 64,
     iters: int = 2,
-    link_bps: float = V5E_ICI_LINK_BPS,
+    link_bps: float = NVLINK_BPS,
     latency_s: float = COLLECTIVE_LATENCY_S,
 ) -> int:
     """Smallest per-device shard for which projected efficiency >= target.
@@ -134,62 +132,49 @@ def min_shard_bytes_for_efficiency(
     return int(t_compute_needed * compute_bps) + 1
 
 
-def comm_model_report(
-    compute_bps_slow: float = 2.36e9,
-    compute_bps_good: float = 6.16e9,
-) -> dict:
-    """The SCALING artifact section: projected ICI-vs-compute efficiency
-    of the benched shapes at 8/16/64 chips, plus the minimum shard for
-    the ≥85% (and 99%) targets.  Compute rates are this repo's measured
-    per-chip k-gram numbers on the slow (BENCH_r03) and good (BENCH_r02)
-    rig days — the projection brackets both."""
+def comm_model_report(compute_bps: float) -> dict:
+    """Projected link-vs-compute efficiency of representative shapes at
+    4/8/64 devices, plus the minimum shard for the ≥85% (and 99%)
+    targets, at a per-device compute rate ``compute_bps`` supplied by the
+    caller (a rate measured on the card, e.g. ``chip_smoke.py``'s k-gram
+    phase)."""
     out: dict = {
         "assumptions": {
-            "ici_link_bps": V5E_ICI_LINK_BPS,
+            "link_bps": NVLINK_BPS,
             "collective_latency_s": COLLECTIVE_LATENCY_S,
+            "compute_bps": compute_bps,
             "iters": 2,
             "overlap": 64,
             "note": "per-collective bytes are EXACT from shapes "
                     "(dist_scan.py shard_map bodies contain no other "
-                    "communication); latency/bandwidth are public v5e "
-                    "figures; collectives counted as unoverlapped "
-                    "(worst case)",
+                    "communication); link bandwidth is the H100 NVLink "
+                    "data-sheet figure; collectives counted as "
+                    "unoverlapped (worst case)",
         },
         "configs": [],
     }
     batch = 8
-    for n_chips, shard in [(8, 1 << 26), (8, 1 << 22), (16, 1 << 26),
-                           (64, 1 << 26), (64, 1 << 22)]:
-        n_data, n_seq = (2, n_chips // 2) if n_chips > 1 else (1, 1)
+    for n_dev, shard in [(4, 1 << 26), (4, 1 << 22), (8, 1 << 26),
+                         (64, 1 << 26), (64, 1 << 22)]:
+        n_data, n_seq = (2, n_dev // 2) if n_dev > 1 else (1, 1)
         comm = fast_dist_comm_bytes(batch, shard, n_data, n_seq)
-        row = {
-            "chips": n_chips,
+        out["configs"].append({
+            "devices": n_dev,
             "mesh": f"{n_data}x{n_seq}",
             "shard_bytes_per_device": shard,
             "comm": comm,
-            "efficiency_slow_day": round(
-                project_efficiency(comm, compute_bps_slow)["efficiency"], 5
+            "efficiency": round(
+                project_efficiency(comm, compute_bps)["efficiency"], 5
             ),
-            "efficiency_good_day": round(
-                project_efficiency(comm, compute_bps_good)["efficiency"], 5
-            ),
-        }
-        out["configs"].append(row)
+        })
     for target in (0.85, 0.99):
-        out[f"min_shard_bytes_eff_{int(target * 100)}"] = {
-            "slow_day": min_shard_bytes_for_efficiency(
-                target, batch, 2, 4, compute_bps_slow
-            ),
-            "good_day": min_shard_bytes_for_efficiency(
-                target, batch, 2, 4, compute_bps_good
-            ),
-        }
+        out[f"min_shard_bytes_eff_{int(target * 100)}"] = (
+            min_shard_bytes_for_efficiency(target, batch, 2, 2, compute_bps)
+        )
     out["statement"] = (
-        "projected >=85% weak-scaling efficiency at 8-64 v5e chips for "
-        "per-device shards >= "
-        f"{out['min_shard_bytes_eff_85']['good_day']} bytes "
-        "(good-day compute rate; the benched 64 MiB shards project "
-        ">=99.9% on both rate scales) — the seam design moves O(1) "
+        "projected >=85% weak-scaling efficiency on a 2x2 mesh for "
+        f"per-device shards >= {out['min_shard_bytes_eff_85']} bytes at "
+        f"{compute_bps:.3g} B/s per device — the seam design moves O(1) "
         "collective phases and O(overlap + batch + n_seq) ints per "
         "device per scan, independent of shard length"
     )

@@ -1,16 +1,16 @@
 """Mesh construction helpers.
 
 The reference is single-device (its only interconnect is the BRAM read bus,
-SURVEY.md SS1); the TPU design scales over a device mesh with two logical
+SURVEY.md SS1); this design scales over a device mesh with two logical
 axes:
 
 - ``data``: independent byte streams (the generalization of the reference's
   dual-stream mode) / corpus shards,
 - ``seq``: sequence parallelism — blocks of one stream spread over chips,
-  with seam composition over ICI (SURVEY.md SS5.7-5.8),
+  with seam composition across devices (SURVEY.md SS5.7-5.8),
 - ``model``: tensor parallelism — the STATE dimension of very large NFA
   tables sharded over chips (SURVEY.md SS2.2 "shard the S-dimension"),
-  combined per step with a ``psum`` over ICI (``tp_scan.py``).
+  combined per step with a ``psum`` (``tp_scan.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def make_tp_mesh(
     """Build a (data, model) mesh for state-sharded (tensor-parallel) scans.
 
     Default: all devices on the model axis.  Lay the model axis innermost so
-    the per-step ``psum`` of successor counts rides ICI neighbors.
+    the per-step ``psum`` of successor counts stays within a data row.
     """
     devices = devices if devices is not None else jax.devices()
     if n_model is None:

@@ -3,11 +3,11 @@
 A multi-host run is: ``init_distributed()`` on every host, one global
 (data, seq) mesh over all chips, per-host file shards feeding the local
 devices (``ingest.shard_files``), and the same ``dist_scan`` collectives —
-XLA routes psum/ppermute over ICI within a slice and DCN across slices.
-No separate NCCL/MPI-style backend exists or is needed.
+XLA lowers psum/ppermute to the platform's collectives (NCCL on GPUs),
+within a host and across hosts.
 
 This module is structured so single-host == multi-host with host_count=1;
-real multi-host execution requires a pod slice (validated here on the
+real multi-host execution requires several hosts (validated here on the
 virtual device mesh, SURVEY.md SS4.4).
 """
 

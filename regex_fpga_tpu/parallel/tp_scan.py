@@ -6,7 +6,7 @@ that only matters for rulesets far larger than the two shipped images
 axis for very large rulesets").  This module implements that axis as a
 first-class engine rather than a documented decision:
 
-- The active set is carried as a FULL S-bit bitmap (the direct TPU analogue
+- The active set is carried as a FULL S-bit bitmap (the direct device analogue
   of the reference's per-state BFS bitmaps ``current``/``next``,
   ``Design/FPGA.v:54-57``) instead of the bounded active list of
   ``ops/nfa_engine.py`` — so there is no active-set bound to overflow, at the

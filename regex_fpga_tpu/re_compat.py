@@ -1,5 +1,5 @@
 """``regex_fpga_tpu.re_compat`` — a drop-in subset of Python's ``re``
-module backed by the TPU DFA engines.
+module backed by the device DFA engines.
 
 The reference design has no software API at all (SURVEY.md §0 — it is pure
 RTL); this module is the "switch your code over" surface a regex-engine

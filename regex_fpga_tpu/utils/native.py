@@ -1,13 +1,16 @@
 """ctypes bindings for the native (C++) golden scanners.
 
-Mirrors the Python oracles' semantics at ~10^8 bytes/s for corpus-scale
-conformance diffing.  The library auto-builds on first use (g++ is part of
-the baked toolchain; no pybind11 in this image, so plain C ABI + ctypes).
+Mirrors the Python oracles' semantics for corpus-scale conformance
+diffing.  The library is built from ``native/golden_scan.cpp`` on first
+use (plain C ABI + ctypes, no pybind11) into ``native/build/``, under a
+name keyed by the hash of the sources, so a fresh checkout or an edited
+source always gets a library built on this machine from these sources.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
@@ -24,24 +27,50 @@ __all__ = [
 ]
 
 _LIB = None
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native")
+)
+_SOURCES = ("golden_scan.cpp", "build.sh")
+
+
+def library_path() -> str:
+    """Path of the library built from the current sources: the file name
+    carries a hash of ``golden_scan.cpp`` and ``build.sh``, so any edit to
+    either selects (and builds) a new library."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(
+        _NATIVE_DIR, "build", f"libgolden_scan-{h.hexdigest()[:16]}.so"
+    )
+
+
+def _build(so: str) -> None:
+    """Compile into a private temporary name and rename it into place, so
+    concurrent first users (test workers) never load a half-written
+    library."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            ["sh", os.path.join(_NATIVE_DIR, "build.sh"), tmp],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = os.path.abspath(os.path.join(_NATIVE_DIR, "libgolden_scan.so"))
-    src = os.path.abspath(os.path.join(_NATIVE_DIR, "golden_scan.cpp"))
-    stale = not os.path.exists(so) or (
-        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(so)
-    )
-    if stale:
-        subprocess.run(
-            ["sh", os.path.join(_NATIVE_DIR, "build.sh")],
-            check=True,
-            capture_output=True,
-        )
+    so = library_path()
+    if not os.path.exists(so):
+        _build(so)
     lib = ctypes.CDLL(so)
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -123,7 +152,7 @@ def nfa_scan_native(
 ):
     """Returns (counts (S+1,) int64, final_active (cap,) int32).
 
-    Raises on active-set overflow (mirrors the TPU engine's flag)."""
+    Raises on active-set overflow (mirrors the device engine's flag)."""
     lib = _load()
     c, s1, k = delta.shape
     s = s1 - 1
@@ -225,9 +254,8 @@ def dfa_scan_multi_native(
     c, s = table.shape
     _check_table_domain(np.asarray(table), s)
     # int16 tables when every state id fits (all shipped rulesets): half
-    # the cache footprint, measured decisive once (C, S) spills L2 —
-    # snort_16 (S=9,514, C=74: 2.7 MB -> 1.4 MB) 0.28 -> 0.45 GB/s/core
-    # with the accept-branch (golden_scan.cpp header note)
+    # the cache footprint once (C, S) spills L2 — snort_16 (S=9,514,
+    # C=74) shrinks from 2.7 MB to 1.4 MB
     use16 = s < (1 << 15)
     table = (_as_table16(table) if use16
              else np.ascontiguousarray(table, dtype=np.int32))

@@ -1,4 +1,4 @@
-"""Fast (gather-free MXU) DFA engine vs serial oracle + convergence handling."""
+"""Fast (one-hot GEMM) DFA engine vs serial oracle + convergence handling."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -115,18 +115,14 @@ def test_domain_guard_flags_corrupt_table(rng):
 def test_domain_guard_flags_bf16_lossy_table(rng):
     """A table whose values cannot ride losslessly in the matmul dtype is
     flagged even when every id is in range (the bf16 >256 trap)."""
-    import jax
-
     from regex_fpga_tpu.ops.dfa_fast import mm_dtype, table_domain_ok
-    from regex_fpga_tpu.ops.tables import DfaTables
 
-    if mm_dtype(300) != jnp.bfloat16:
-        # mm_dtype correctly picks f32 for S=300 (and off-TPU always f32):
-        # simulate the broken contract by checking the guard's lossless
-        # clause directly with a bf16-truncating value set
-        vals = jnp.arange(300, dtype=jnp.int32)
-        lossy = jnp.any(vals.astype(jnp.bfloat16).astype(jnp.int32) != vals)
-        assert bool(lossy)  # 257..300 do truncate in bf16
+    # mm_dtype picks f32 for an unsplit S=300 table, because bf16 would
+    # truncate ids 257..299 (the broken contract the guard exists for)
+    assert mm_dtype(300) == jnp.float32
+    vals = jnp.arange(300, dtype=jnp.int32)
+    lossy = jnp.any(vals.astype(jnp.bfloat16).astype(jnp.int32) != vals)
+    assert bool(lossy)  # 257..300 do truncate in bf16
     table = np.zeros((256, 300), dtype=np.int64)
     table[:] = np.arange(300)[None, :]  # identity-ish, ids up to 299
     accept = np.zeros(300, dtype=bool)
@@ -135,16 +131,15 @@ def test_domain_guard_flags_bf16_lossy_table(rng):
     assert bool(table_domain_ok(dt))
 
 
-def test_split_state_encoding_exact(rng, monkeypatch):
-    """Byte-split bf16 tables (TPU big-S route, forced on here) == serial
-    scan: T = 256*Th + Tl recombination is exact for S up to 2^16."""
-    import jax.numpy as jnp
+def test_split_state_encoding_exact(rng):
+    """Byte-split bf16 tables (the rule's choice for 256 < S <= 2^16) ==
+    serial scan: T = 256*Th + Tl recombination is exact."""
     import regex_fpga_tpu.ops.dfa_fast as df
     from regex_fpga_tpu.ops import dfa_scan_serial
 
-    monkeypatch.setattr(df, "split_states", lambda s: s > 256)
     table, accept = random_dfa_table(rng, 501, 12)
     dt = build_dfa_tables(table, accept)
+    assert df.step_plan(dt.num_classes, dt.num_states).encoding == "split"
     stream = rng.integers(0, 256, size=64 * 32).astype(np.uint8)
     classes = jnp.asarray(np.asarray(dt.class_of)[stream])
     res = df.dfa_scan_fast(dt, classes, num_blocks=32)
@@ -158,19 +153,18 @@ def test_split_state_encoding_exact(rng, monkeypatch):
     np.testing.assert_array_equal(np.asarray(rc.counts), np.asarray(ser.counts))
 
 
-def test_split_state_kgram_exact(rng, monkeypatch):
-    """Byte-split [Tl|Th|A] k-gram step (forced on) == serial totals."""
-    import jax.numpy as jnp
+def test_split_state_kgram_exact(rng):
+    """Byte-split [Tl|Th|A] k-gram step (S > 256) == serial totals."""
     import regex_fpga_tpu.ops.dfa_fast as df
     from regex_fpga_tpu.ops import dfa_scan_serial
     from regex_fpga_tpu.ops.kgram import (
         build_kgram, dfa_scan_kgram, map_kgram_classes,
     )
 
-    monkeypatch.setattr(df, "split_states", lambda s: s > 256)
     table, accept = random_dfa_table(rng, 347, 20)
     table = table[np.arange(256) % 7]  # few byte classes -> kgram viable
     dt = build_dfa_tables(table, accept)
+    assert df.split_states(dt.num_states)
     kg = build_kgram(dt, levels=2, max_classes=1 << 16)
     assert kg is not None
     stream = rng.integers(0, 256, size=16 * 64 * kg.k).astype(np.uint8)
@@ -185,16 +179,15 @@ def test_split_state_kgram_exact(rng, monkeypatch):
     assert int(res.final_state) == int(ser.final_state)
 
 
-def test_split_state_multi_stream_exact(rng, monkeypatch):
-    """Byte-split encoding through the multi-stream batch engine (forced on)
-    == per-stream serial scans."""
-    import jax.numpy as jnp
+def test_split_state_multi_stream_exact(rng):
+    """Byte-split encoding through the multi-stream batch engine ==
+    per-stream serial scans."""
     import regex_fpga_tpu.ops.dfa_fast as df
     from regex_fpga_tpu.ops import dfa_scan_serial
 
-    monkeypatch.setattr(df, "split_states", lambda s: s > 256)
     table, accept = random_dfa_table(rng, 333, 9)
     dt = build_dfa_tables(table, accept)
+    assert df.split_states(dt.num_states)
     streams = rng.integers(0, 256, size=(3, 1024)).astype(np.uint8)
     classes = jnp.asarray(np.asarray(dt.class_of)[streams])
     res = df.dfa_scan_fast_multi(dt, classes, num_blocks=8, emit="counts")
@@ -238,10 +231,9 @@ def test_transposed_step_decision():
     assert not df.transposed_step(128, 128)  # true tie: keep original
 
 
-def test_transposed_vs_original_orientation_exact(rng, monkeypatch):
-    """Both GEMM orientations produce bit-identical scans (forced via the
-    decision fn), across the f32 and forced-split encodings."""
-    import jax.numpy as jnp
+def test_transposed_vs_original_orientation_exact(rng):
+    """Both GEMM orientations produce bit-identical scans (forced via an
+    explicit StepPlan), across the f32 and byte-split encodings."""
     import regex_fpga_tpu.ops.dfa_fast as df
     from regex_fpga_tpu.ops import dfa_scan_serial
 
@@ -250,13 +242,12 @@ def test_transposed_vs_original_orientation_exact(rng, monkeypatch):
     stream = rng.integers(0, 256, size=64 * 32).astype(np.uint8)
     classes = jnp.asarray(np.asarray(dt.class_of)[stream])
     ser = dfa_scan_serial(dt, jnp.asarray(stream))
-    for split_on in (False, True):
-        if split_on:
-            monkeypatch.setattr(df, "split_states", lambda s: s > 256)
+    for encoding in ("f32", "split"):
         results = []
         for forced in (True, False):
-            monkeypatch.setattr(df, "transposed_step", lambda c, s: forced)
-            res = df.dfa_scan_fast(dt, classes, num_blocks=32, emit="counts")
+            plan = df.StepPlan(encoding, forced)
+            res = df.dfa_scan_fast(dt, classes, num_blocks=32,
+                                   emit="counts", plan=plan)
             assert bool(res.converged) and bool(res.domain_ok)
             assert int(res.final_state) == int(ser.final_state)
             np.testing.assert_array_equal(
@@ -264,3 +255,100 @@ def test_transposed_vs_original_orientation_exact(rng, monkeypatch):
             )
             results.append(np.asarray(res.counts))
         np.testing.assert_array_equal(*results)
+
+
+def _decode_step_table(st, num_states: int) -> np.ndarray:
+    """Invert ``_step_tables``' encoding back to the (C, S) id table."""
+    t = np.asarray(st.t.astype(jnp.float32)).astype(np.int64)
+    if st.split:
+        half = t.shape[1] // 2
+        t = t[:, :half] + 256 * t[:, half:]
+    return t.T if st.transposed else t
+
+
+@pytest.mark.parametrize("s", [23, 256, 257, 440, 836, 65536, 65537])
+def test_exactness_rule_round_trips_ids(s, monkeypatch):
+    """The encoding the rule picks for S states carries every id 0..S-1
+    exactly through the GEMM operand dtype, and the choice reads only the
+    value range: it is the same whatever backend JAX reports."""
+    import jax
+
+    import regex_fpga_tpu.ops.dfa_fast as df
+    from regex_fpga_tpu.ops.tables import DfaTables
+
+    want = "bf16" if s <= 256 else ("split" if s <= 65536 else "f32")
+    choices = set()
+    for backend in ("cpu", "gpu", "rocm"):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        choices.add((df.table_encoding(s), df.split_states(s),
+                     str(jnp.dtype(df.mm_dtype(s)))))
+    assert len(choices) == 1
+    assert df.table_encoding(s) == want
+    ids = np.arange(s, dtype=np.int32)
+    dt = DfaTables(
+        table=jnp.asarray(ids.reshape(1, s)),
+        accept=jnp.zeros((s,), bool),
+        class_of=jnp.zeros((256,), jnp.int32),
+        num_states=s,
+    )
+    st = df._step_tables(dt)
+    np.testing.assert_array_equal(_decode_step_table(st, s)[0], ids)
+    assert bool(df.table_domain_ok(dt))
+
+
+def _dot_generals(jaxpr, out):
+    """Every dot_general eqn in a jaxpr, nested jaxprs (scan, while, cond,
+    pjit bodies) included."""
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn)
+        for v in eqn.params.values():
+            for x in (v if isinstance(v, (tuple, list)) else (v,)):
+                sub = getattr(x, "jaxpr", x)  # ClosedJaxpr -> Jaxpr
+                if hasattr(sub, "eqns"):
+                    _dot_generals(sub, out)
+    return out
+
+
+@pytest.mark.parametrize("s", [23, 300, 70000])
+def test_every_f32_one_hot_dot_is_highest(s, rng):
+    """An f32 dot without an explicit precision may run as TF32 on the GPU
+    (exact only to 2,048): every f32-operand dot_general the fast and
+    k-gram engines emit must carry Precision.HIGHEST."""
+    import jax
+
+    from regex_fpga_tpu.ops.dfa_fast import StepPlan, dfa_scan_fast
+    from regex_fpga_tpu.ops.kgram import dfa_scan_kgram
+    from regex_fpga_tpu.ops.tables import DfaTables
+
+    c = 4
+    table = jnp.asarray(rng.integers(0, s, size=(c, s), dtype=np.int32))
+    dt = DfaTables(table=table, accept=jnp.zeros((s,), bool),
+                   class_of=jnp.zeros((256,), jnp.int32),
+                   num_states=s)
+    classes = jnp.zeros((64,), jnp.int32)
+    traced = [
+        jax.make_jaxpr(lambda t, x, e=emit: dfa_scan_fast(
+            t, x, num_blocks=8, emit=e))(dt, classes)
+        for emit in ("full", "counts", "mask")
+    ]
+    traced.append(jax.make_jaxpr(lambda t, x: dfa_scan_fast(
+        t, x, num_blocks=8, emit="counts", plan=StepPlan("f32", False)))(
+            dt, classes))
+    acc = jnp.ones((c, s), jnp.int32)
+    for bound in (None, 4):
+        traced.append(jax.make_jaxpr(
+            lambda t, a, x, b=bound: dfa_scan_kgram(
+                t, a, x, num_blocks=8, acc_bound=b))(table, acc, classes))
+    seen_f32 = 0
+    for closed in traced:
+        for eqn in _dot_generals(closed.jaxpr, []):
+            dtypes = {str(v.aval.dtype) for v in eqn.invars}
+            if "float32" in dtypes:
+                seen_f32 += 1
+                prec = eqn.params["precision"]
+                assert prec is not None and all(
+                    p == jax.lax.Precision.HIGHEST for p in prec
+                ), (s, prec)
+    # the f32 route is exercised: forced at every S, chosen above 2^16
+    assert seen_f32 > 0

@@ -41,7 +41,7 @@ def test_export_coe_roundtrip(tmp_path):
 
 
 def test_exported_ruleset_runs_on_tpu_engine(tmp_path):
-    """Full circle: our compiler -> reference format -> our TPU engine."""
+    """Full circle: our compiler -> reference format -> our device engine."""
     import jax.numpy as jnp
 
     path = str(tmp_path / "rule.coe")

@@ -76,24 +76,44 @@ def test_kgram_speculation_fallback_mod3():
     assert int(res.total) == int(np.asarray(ser.counts).sum())
 
 
-def test_kgram_pallas_matches_jnp(rng):
-    """Pallas k-gram chain (interpret mode off-TPU) == jnp engine."""
+@pytest.mark.parametrize("s_states,levels,packed", [
+    (48, 1, True),    # (47)*4 + 2 = 190 <= 256: packed bf16
+    (100, 2, False),  # (99)*8 + 4 = 796 > 256: unpacked tables
+])
+def test_kgram_packed_limit_follows_exactness_rule(rng, s_states, levels,
+                                                    packed):
+    """The packed T*mult+A route is taken only while packed values stay
+    bf16-exact (dfa_fast.table_encoding); either route is exact."""
+    import jax
     import jax.numpy as jnp
-    from regex_fpga_tpu.models import build_tokenizer_dfa
-    from regex_fpga_tpu.ops import build_dfa_tables
 
-    tok = build_tokenizer_dfa()
-    dt = build_dfa_tables(tok.table, tok.accept)
-    kg = build_kgram(dt, levels=1)
-    stream = rng.integers(0, 256, size=512 * 128 * 2).astype(np.uint8)
-    ck = jnp.asarray(map_kgram_classes(kg, stream))
+    from regex_fpga_tpu.ops import dfa_scan_serial
+    from regex_fpga_tpu.ops.kgram import make_kgram_step
+
+    table, accept = random_dfa_table(rng, s_states, 6)
+    table = table[np.arange(256) % 5]  # few byte classes -> kgram viable
+    dt = build_dfa_tables(table, accept)
+    kg = build_kgram(dt, levels=levels, max_classes=100_000)
+    assert kg is not None
     tj, aj = jnp.asarray(kg.table), jnp.asarray(kg.acc_table)
-    ref = dfa_scan_kgram(tj, aj, ck, num_blocks=512, start=tok.start)
-    got = dfa_scan_kgram(tj, aj, ck, num_blocks=512, start=tok.start,
-                         use_pallas=True)
-    assert int(got.total) == int(ref.total)
-    assert int(got.final_state) == int(ref.final_state)
-    assert bool(got.converged)
+    step = make_kgram_step(tj, aj, acc_bound=kg.k)
+    jaxpr = jax.make_jaxpr(step)(jnp.zeros((4,), jnp.int32),
+                                 jnp.zeros((4,), jnp.int32))
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 1
+    width = dots[0].invars[1].aval.shape[1]
+    assert width == (s_states if packed else 2 * s_states)
+    # the table operand is encoded in bf16 (widened to f32 only at the
+    # dot on the CPU backend, dfa_fast.one_hot_dot)
+    assert any(str(v.aval.dtype) == "bfloat16"
+               for e in jaxpr.jaxpr.eqns for v in e.outvars)
+    stream = rng.integers(0, 256, size=8 * 64 * kg.k).astype(np.uint8)
+    ck = jnp.asarray(map_kgram_classes(kg, stream))
+    res = dfa_scan_kgram(tj, aj, ck, num_blocks=8, acc_bound=kg.k)
+    ser = dfa_scan_serial(dt, jnp.asarray(stream))
+    assert bool(res.converged)
+    assert int(res.total) == int(np.asarray(ser.counts).sum())
+    assert int(res.final_state) == int(ser.final_state)
 
 
 def test_kgram_packed_equals_split(rng):

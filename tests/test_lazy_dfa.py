@@ -132,20 +132,28 @@ def test_host_scan_batch_matches_serial(rng):
 
 
 def test_api_scan_batch_conformance():
-    """api.scan on both trace streams (batch path) == ground truth."""
+    """api.scan on two flows (batch path) == per-stream serial walk, on the
+    l7-filter-scale corpus exported to a reference-convention CSR NFA."""
     from regex_fpga_tpu import api
-    import os
-    from regex_fpga_tpu.utils import reference_root
+    from regex_fpga_tpu.models.export_csr import regexes_to_csr
+    from regex_fpga_tpu.models.l7_corpus import gen_l7_patterns, gen_l7_traffic
 
-    m = api.compile_ruleset(
-        os.path.join(reference_root(), "Block_Mem/CSR_BlockMem.coe")
-    )
-    lo, hi = load_trace_pair("l-7_filter", limit=60_000)
+    unanchored = [("(?i)" if icase else "") + pat
+                  for _, pat, icase, _ in gen_l7_patterns()
+                  if not pat.startswith("^")]
+    aut, _ = regexes_to_csr(unanchored)
+    m = api.compile_ruleset(aut)
+    payloads, planted = gen_l7_traffic(n_payloads=120)
+    lo = np.frombuffer(b"".join(payloads[:60]), np.uint8)
+    hi = np.frombuffer(b"".join(payloads[60:]), np.uint8)
     rep = m.scan([lo, hi])
+    assert rep.metrics.engine == "nfa-lazy"
     ser_lo, _, _ = m.lazy_dfa.host_scan(lo)
     ser_hi, _, _ = m.lazy_dfa.host_scan(hi)
     np.testing.assert_array_equal(rep.counts[0], ser_lo)
     np.testing.assert_array_equal(rep.counts[1], ser_hi)
+    np.testing.assert_array_equal(rep.counts[0], nfa_scan(aut, lo))
+    assert rep.total > 0  # planted protocol samples fire
 
 
 def test_host_scan_batch_many_streams(rng):

@@ -83,7 +83,7 @@ def test_batch_matches_per_stream(reference_available):
 @pytest.mark.slow
 @pytest.mark.parametrize("name", ["l-7_filter", "snort_16"])
 def test_full_conformance(reference_available, name):
-    """The four-trace bit-exact gate (SURVEY.md SS4.2) through the TPU engine."""
+    """The four-trace bit-exact gate (SURVEY.md SS4.2) through the device engine."""
     aut = load_ruleset(name)
     t = build_nfa_tables(aut)
     lo, hi = load_trace_pair(name)
